@@ -1,10 +1,11 @@
-"""cudacam_tpu — a TPU-native real-time Canny edge-detection framework.
+"""cudacam_tpu — a real-time Canny edge-detection framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the CUDA
-desktop app axoloto/CudaCam (see SURVEY.md), re-architected for TPUs:
-blocked Pallas stencil kernels, an on-device lax.while_loop hysteresis fixed
-point, device-resident frame ring buffers, and shard_map tiling with halo
-exchange over ICI for multi-chip / multi-host scaling.
+Built from scratch in JAX/XLA with the capabilities of the CUDA
+desktop app axoloto/CudaCam (see SURVEY.md), re-architected as one
+compiled XLA program per frame: integer stencils, a bit-packed on-device
+lax.while_loop hysteresis fixed point, device-resident frame ring buffers,
+and shard_map tiling with halo exchange for multi-device / multi-host
+scaling. Its accelerator is an NVIDIA GPU.
 """
 from cudacam_tpu.config import CannyConfig
 from cudacam_tpu.stages import CANDIDATE_EDGE, CANNY_STAGE_NAMES, FINAL_EDGE, NO_EDGE, CannyStage

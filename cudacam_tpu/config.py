@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native Canny pipeline.
+"""Configuration for the Canny pipeline.
 
 The reference keeps its configuration in three tiers — compile-time CMake
 options, compile-time constants (thresholds 10/40 at cannyEdgeH.cu:22-23,
@@ -8,7 +8,7 @@ into one frozen dataclass, plus the extensions mandated by BASELINE.json:
 variable kernel size (3/5/7), L1/L2 gradient norm, and sharding/mesh shape.
 
 Static vs runtime split: fields that change compiled code (shapes, kernel
-size, norm, backend, final stage) are static; thresholds are *runtime*
+size, norm, parity, final stage) are static; thresholds are *runtime*
 arguments to the jitted pipeline so slider changes never recompile
 (the reference pays a kernel re-launch, we pay nothing).
 """
@@ -73,57 +73,29 @@ class CannyConfig:
     # --- hysteresis ------------------------------------------------------
     # Global round cap: "safety belt", reference caps host relaunches at
     # 100 (cannyEdgeH.cu:313). Ours caps bit-packed promotion rounds
-    # (ops/bitpack.py); identical across backends, so outputs stay
-    # bit-identical even when the cap truncates.
+    # (ops/bitpack.py); every executor runs the same round schedule, so
+    # outputs stay bit-identical even when the cap truncates.
     max_hysteresis_iters: int = 100
     # Bit-parallel dilations fused per round/convergence check. Default
-    # (None): 16 everywhere except 32 in the 4K band. The optimum tracks
-    # the SCENE's propagation depth, not the frame diameter, and the
-    # waste of overshooting convergence grows with both the step count
-    # and the state size (r4 megakernel sweep,
-    # tools/megaframe_ds_probe.py: 4K 740/750/770 us at ds 32/48/64; 8K
-    # 1989/2101/2163 at 16/32/48). The knob is exposed for
-    # depth-atypical content.
+    # (None): 16 everywhere except 32 in the 4K band. Together with
+    # hysteresis_scan_after it fixes the round schedule, so cap-truncated
+    # outputs depend on both; the defaults are kept as they are for that
+    # reason. They were tuned on earlier hardware and have not been
+    # re-tuned on the H100. The knob is exposed for depth-atypical content.
     hysteresis_inner_steps: Optional[int] = None
     # Rounds of pure dilation before escalating to the 8-direction
     # carry-lookahead scans (long straight candidate runs). Default
-    # (None): 64 at <=1080p, 32 on mega-frames. Escalation is expensive
-    # relative to the rounds it skips — a 1080p phase-1 round costs
-    # ~5.2 us in-kernel while a TAKEN phase-2 continuation costs
-    # 0.6-3.5 ms (tools/escalation_probe.py) — and real scenes converge
-    # in phase 1 when allowed: the slowest measured scene is 31 rounds
-    # (ks=3 seed 0) at 1080p, 15 at 4K. r3's scan_after=12 made that one
-    # scene wear the continuation every frame (the ks=3 row's 2x
-    # regression, VERDICT r3); the derived defaults sit ~2x past the
-    # slowest measured scene. Raising it also LOWERS the adversarial
-    # ceiling: at the 100-round cap, later escalation truncates the
-    # expensive scan rounds, not the cheap dilations (1080p spiral:
-    # 2.08 -> 1.02 ms direct at sa=72). The escalation valve itself stays
-    # (scan_after < max_iters) for inputs with genuinely long monotone
-    # runs.
+    # (None): 64 at <=1080p, 32 on mega-frames — about twice the deepest
+    # phase-1 convergence seen on the synthetic scenes (31 rounds at
+    # 1080p with kernel size 3, 15 at 4K). Real scenes then converge in
+    # phase 1, and at the 100-round cap a later escalation truncates the
+    # costlier scan rounds rather than the dilations. The escalation valve
+    # itself stays (scan_after < max_iters) for inputs with genuinely long
+    # monotone runs.
     hysteresis_scan_after: Optional[int] = None
 
     # --- execution -------------------------------------------------------
-    backend: str = "auto"  # 'pallas' | 'xla' | 'auto'
     parity: str = "reference"  # 'reference' | 'opencv'
-    interpret: bool = False  # run Pallas kernels in interpreter mode (CPU CI)
-    # Phase-2 hysteresis continuation form on the megakernel path (STATIC —
-    # it changes the compiled program). 'auto' (default): the size policy
-    # of megakernel.canny_mega_pipeline — XLA at <=1080p, where the mere
-    # PRESENCE of the untaken Pallas branch costs ~12 us/frame and phase 2
-    # is adversarial-only; Pallas on mega-frames, where phase 2 is
-    # scene-typical. 'pallas' is the escape hatch for deployments that
-    # EXPECT cap-class inputs (long monotone chains) and will pay the
-    # 12 us/frame branch tax for a ~3x cheaper taken continuation (1080p
-    # spiral through the engine: ~1.9 ms XLA -> ~1.2 ms Pallas,
-    # BENCH_TABLE.md). 'xla' forces the portable form everywhere. 'split'
-    # is the 8K-class column-split form ('auto' picks it there — the
-    # monolithic scan kernel does not compile at those plane shapes);
-    # it is a multi-tile executor, so cap-TRUNCATED adversarial outputs
-    # follow the docs/parity.md carve-out (converged outputs are
-    # bit-identical across all forms; forcing 'xla' restores single-chip
-    # truncation identity at the r4 escalation cost).
-    continuation: str = "auto"  # 'auto' | 'pallas' | 'xla' | 'split'
 
     def __post_init__(self) -> None:
         if self.kernel_size not in GAUSSIAN_TAPS:
@@ -132,14 +104,8 @@ class CannyConfig:
             raise ValueError("norm must be 'l1' or 'l2'")
         if self.channels not in (1, 3):
             raise ValueError("channels must be 1 (mono) or 3 (BGR)")
-        if self.backend not in ("auto", "pallas", "xla"):
-            raise ValueError("backend must be 'auto', 'pallas' or 'xla'")
         if self.parity not in ("reference", "opencv"):
             raise ValueError("parity must be 'reference' or 'opencv'")
-        if self.continuation not in ("auto", "pallas", "xla", "split"):
-            raise ValueError(
-                "continuation must be 'auto', 'pallas', 'xla' or 'split'"
-            )
         if self.grad_coeff not in (1, 2, 4, 8):
             # The exact-integer display magnitude (isqrt(m)*coeff)//8 equals
             # the reference's trunc(coeff*sqrt(m)/8) only when coeff divides
@@ -150,13 +116,7 @@ class CannyConfig:
         side = max(self.height, self.width)
         if self.hysteresis_inner_steps is None:
             # Derived default (frozen dataclass, hence object.__setattr__):
-            # 32 in the 4K band amortizes the per-round convergence check
-            # over the bigger state; 16 everywhere else. Scene propagation
-            # depth does NOT grow with the frame diameter, and the waste
-            # of overshooting convergence grows with both the step count
-            # and the state size — at 8K a ds=32 round costs ~146 µs and
-            # the scene measures FASTER at 16 (1989 vs 2101 µs,
-            # tools/megaframe_ds_probe.py; 4K: 740 at 32 vs 750 at 48).
+            # 32 in the 4K band, 16 everywhere else (see the field comment).
             object.__setattr__(
                 self,
                 "hysteresis_inner_steps",
@@ -165,9 +125,7 @@ class CannyConfig:
         elif self.hysteresis_inner_steps < 1:
             raise ValueError("hysteresis_inner_steps must be >= 1")
         if self.hysteresis_scan_after is None:
-            # Derived default: ~2x the slowest measured scene's phase-1
-            # convergence (31 rounds at 1080p/ks3, 15 at 4K with the
-            # bigger inner_steps above) — see the field comment.
+            # Derived default: see the field comment.
             object.__setattr__(
                 self, "hysteresis_scan_after", 64 if side <= 2048 else 32
             )

@@ -4,11 +4,11 @@ Gives multi-chip/multi-host deployments the same surface as the single-chip
 engine (spec-locked process(), clamped runtime thresholds, run-to-stage-k)
 on top of the shard_map pipeline (cudacam_tpu/parallel/sharded.py): frames
 are tile-partitioned over a (batch, rows, cols) mesh with halo exchange
-over ICI and psum-converged hysteresis.
+between neighbouring devices and psum-converged hysteresis.
 
 Usage::
 
-    mesh = make_mesh(batch=1, rows=8, cols=1)     # or pod_mesh() multi-host
+    mesh = make_mesh(batch=1, rows=4, cols=1)     # or pod_mesh() multi-host
     eng = ShardedCannyEngine(CannyConfig(height=4320, width=7680), mesh)
     edges = eng.process(frames)                    # (B, H, W) on the mesh
 """
@@ -38,23 +38,14 @@ class ShardedCannyEngine(ThresholdControls):
         self,
         config: CannyConfig,
         mesh: Optional[Mesh] = None,
-        backend: Optional[str] = None,
     ) -> None:
         self._cfg = config
         self._mesh = mesh if mesh is not None else make_mesh()
-        if backend is None:
-            backend = config.backend
-        if backend == "auto":
-            platform = jax.devices()[0].platform
-            backend = "pallas" if platform == "tpu" else "xla"
-        if backend not in ("xla", "pallas"):
-            raise ValueError("backend must be 'auto', 'xla' or 'pallas'")
-        self._backend = backend
         self._init_thresholds(config)
         self._fns: Dict[CannyStage, object] = {}
         log.info(
-            "sharded engine: mesh=%s backend=%s frame=%dx%d",
-            dict(self._mesh.shape), backend, config.height, config.width,
+            "sharded engine: mesh=%s frame=%dx%d",
+            dict(self._mesh.shape), config.height, config.width,
         )
 
     # -- reference accessors (cannyEdgeH.hpp:17-32 analog) -----------------
@@ -67,21 +58,12 @@ class ShardedCannyEngine(ThresholdControls):
     def mesh(self) -> Mesh:
         return self._mesh
 
-    @property
-    def backend(self) -> str:
-        return self._backend
-
     # -- execution ----------------------------------------------------------
 
     def _get_fn(self, stage: CannyStage):
         fn = self._fns.get(stage)
         if fn is None:
-            fn = build_sharded_pipeline(
-                self._cfg,
-                self._mesh,
-                final_stage=stage,
-                backend=self._backend,
-            )
+            fn = build_sharded_pipeline(self._cfg, self._mesh, final_stage=stage)
             self._fns[stage] = fn
         return fn
 

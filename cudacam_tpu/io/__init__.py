@@ -1,6 +1,6 @@
 """Frame IO: sources, device ring buffer, FPS metering, preview/export.
 
-TPU-native analog of the reference's IO and display plumbing:
+The analog of the reference's IO and display plumbing:
 
 * ``io::webcam`` (reference src/io/webcam.{hpp,cpp}) -> the ``FrameSource``
   family in sources.py (webcam, video file, recorded sequence, synthetic);
@@ -8,8 +8,8 @@ TPU-native analog of the reference's IO and display plumbing:
   imguiApp.cpp:427-431) -> ``DeviceRingBuffer`` in ring.py: outputs stay
   device-resident, host readback happens only on explicit preview/export;
 * the ImGui FPS meter (imguiApp.cpp:267-283) -> ``FpsMeter`` in metrics.py;
-* the SDL/OpenGL window -> headless preview/export in preview.py (TPU hosts
-  have no GL; PNG export and terminal rendering are first-class instead).
+* the SDL/OpenGL window -> headless preview/export in preview.py (compute
+  hosts have no GL; PNG export and terminal rendering are first-class instead).
 """
 from cudacam_tpu.io.sources import (
     FrameSource,

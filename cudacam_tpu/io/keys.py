@@ -1,6 +1,6 @@
 """Interactive terminal key controls for a running stream.
 
-TPU-native analog of the reference's keyboard handling in the SDL event
+The analog of the reference's keyboard handling in the SDL event
 loop (imguiApp.cpp:180-194): DELETE toggles the CUDA pipeline, any other
 key cycles the final stage; plus slider-style bindings the reference keeps
 on screen widgets. A daemon thread reads raw single keypresses from the

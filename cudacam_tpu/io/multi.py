@@ -3,7 +3,7 @@
 BASELINE config 4 ("batched multi-camera frames") as a product surface: a
 ``BatchSource`` reads one frame from each child source per step and stacks
 them into a (B, H, W[, C]) batch, which the engine processes as a single
-compiled program (vmap on the XLA backend, an in-program loop on Pallas).
+compiled program (vmapped).
 All children must share one frame spec; the stream ends when any child ends.
 """
 from __future__ import annotations

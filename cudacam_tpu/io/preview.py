@@ -1,6 +1,6 @@
 """Headless preview and export.
 
-The reference displays through SDL2/OpenGL/ImGui (src/imgui/). TPU hosts are
+The reference displays through SDL2/OpenGL/ImGui (src/imgui/). Compute hosts are
 headless, so the framework's first-class display paths are: PNG export of any
 stage buffer, and a terminal (ANSI half-block) renderer for quick eyeballing
 over SSH. Both take host arrays — pull frames from the DeviceRingBuffer via

@@ -3,16 +3,15 @@
 The reference keeps display frames on the GPU via a CUDA-GL interop pixel
 buffer object: the pipeline D2D-copies its stage output into the PBO and
 OpenGL textures straight from it, so display never crosses back to the host
-(reference cannyEdgeH.cu:166-209; imguiApp.cpp:427-431). TPU hosts have no
-GL; the equivalent discipline is a ring of device arrays: ``push`` retains
+(reference cannyEdgeH.cu:166-209; imguiApp.cpp:427-431). A headless host has
+no GL; the equivalent discipline is a ring of device arrays: ``push`` retains
 the engine's output on device (no transfer, no sync), and host readback
 happens only on explicit ``fetch``/``latest_np`` for preview, recording or
 inspection.
 
 A plain slot list is used rather than one stacked device array: pushing a
 frame is then a zero-cost reference retain of the engine's async output (a
-stacked-array ring would pay a device-side copy per frame and force a sync
-point on remote-tunnel deployments).
+stacked-array ring would pay a device-side copy per frame).
 """
 from __future__ import annotations
 

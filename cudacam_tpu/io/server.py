@@ -1,7 +1,7 @@
-"""MJPEG preview server — the live-display analog for headless TPU hosts.
+"""MJPEG preview server — the live-display analog for headless hosts.
 
 The reference renders its live stream in a desktop GL window
-(imguiApp.cpp:393-450). A TPU host has no display; the operational
+(imguiApp.cpp:393-450). A compute host has no display; the operational
 equivalent is an HTTP endpoint: the processing loop keeps pushing outputs
 into the device ring, and this server — on its own thread — reads the
 newest frame back on demand, JPEG-encodes it, and streams it as

@@ -7,7 +7,7 @@ blank frames (reference src/io/webcam.cpp:8-12, 36-40, 65-83). This module
 keeps that contract — spec locked at start, uint8 BGR (or mono) frames — and
 generalises the source kinds: live webcam, video file, recorded ``.npy``
 sequence, and a deterministic synthetic scene generator (the benchmark's
-workload; TPU pods rarely have cameras attached).
+workload; GPU servers rarely have cameras attached).
 """
 from __future__ import annotations
 
@@ -75,13 +75,13 @@ def make_spiral_thresh(h: int, w: int) -> np.ndarray:
 
 
 def make_spiral_frame(h: int, w: int, v: int = 65, gap: int = 12) -> np.ndarray:
-    """Adversarial hysteresis input as a real BGR IMAGE (r5): a square
+    """Adversarial hysteresis input as a real BGR IMAGE: a square
     spiral RIDGE whose flank gradients land in the candidate band at the
     default (10, 40) thresholds, seeded by one bright blob at the outer
     tip. Unlike :func:`make_spiral_thresh` (a raw threshold map fed to
-    the hysteresis kernels directly), this drives the FULL engine path —
-    megakernel, phase-boundary export, taken phase-2 continuation —
-    exactly as a pathological camera scene would. Measured at 512x1024:
+    hysteresis directly), this drives the FULL engine path — feed-forward
+    stages, both hysteresis phases, the round cap — exactly as a
+    pathological camera scene would. Measured at 512x1024:
     29 seed finals, ~87k candidates, 188 convergence rounds (cap-class:
     the 100-round belt truncates it, the reference's analog being 100
     host relaunches, cannyEdgeH.cu:313). Arms sit ``gap`` px apart so the
@@ -451,9 +451,9 @@ def open_source(spec: str, **kw) -> FrameSource:
         return SyntheticSource(**kw)
     if spec.startswith("spiral"):
         # Adversarial worst-case stream (make_spiral_frame): every frame
-        # is the cap-class candidate spiral — drives the megakernel's
-        # taken phase-2 continuation through the real engine/CLI
-        # (`run --source spiral:1080x1920 --continuation pallas`).
+        # is the cap-class candidate spiral — drives hysteresis to its
+        # round cap through the real engine/CLI
+        # (`run --source spiral:1080x1920`).
         if ":" in spec:
             h, w = (int(v) for v in spec.split(":", 1)[1].lower().split("x"))
         else:

@@ -1,7 +1,7 @@
 """Native runtime components (C++, ctypes-bound).
 
 The reference's IO layer is native C++ (io::webcam over cv::VideoCapture,
-src/io/webcam.cpp); this package is the TPU build's native runtime: a
+src/io/webcam.cpp); this package is the framework's native runtime: a
 prefetching frame pump (framepump.cpp) whose producer thread reads a raw
 frame stream into a page-aligned SPSC ring while the JAX consumer overlaps
 device compute, borrowed zero-copy per frame.

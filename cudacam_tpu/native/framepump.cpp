@@ -1,12 +1,12 @@
 // framepump — native prefetching frame reader with an SPSC ring buffer.
 //
-// TPU-native analog of the reference's C++ IO layer (io::webcam wraps
+// The analog of the reference's C++ IO layer (io::webcam wraps
 // cv::VideoCapture and blocks the app thread per frame, reference
 // src/io/webcam.cpp:65-83). Here a producer thread reads frames from a raw
 // stream file into a preallocated ring of page-aligned slots while the
 // Python/JAX consumer overlaps device compute; the consumer borrows slots
 // zero-copy (acquire/release), so the hot loop never allocates or copies on
-// the host side. This is the runtime piece that keeps a TPU fed at
+// the host side. This is the runtime piece that keeps the device fed at
 // >10k fps-equivalent frame rates where a GIL-bound Python reader stalls.
 //
 // Stream format (".rawv"): little-endian header

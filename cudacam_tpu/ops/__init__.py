@@ -1,1 +1,1 @@
-"""Compute ops: NumPy golden oracle, XLA backend, and Pallas TPU kernels."""
+"""Compute ops: the NumPy golden oracle and the XLA implementation."""

@@ -3,26 +3,17 @@
 The reference's hysteresis promotes candidates (128) 8-adjacent to a FINAL
 edge (255) until a global fixed point, via per-block shared-memory iteration
 plus a host relaunch loop (cannyEdgeD.cu:295-377; cannyEdgeH.cu:297-338).
-Any dilate-by-one formulation — the reference's, and this framework's XLA
-while-loop and Pallas sweep kernels — pays one full-frame vector pass per
-pixel step of propagation, which measures ~1 ms/frame at 1080p on real
-scenes (see docs/performance.md): the edge chains are hundreds of pixels
-long, so hundreds of passes run.
+Any dilate-by-one formulation pays one full-frame pass per pixel step of
+propagation, and real edge chains are hundreds of pixels long.
 
-This module is the TPU-native answer, and the framework's default
-hysteresis on every backend:
+This module is the framework's hysteresis:
 
 * **Bit packing.** The FINAL and CANDIDATE masks are packed 32 pixels per
   uint32 lane, VERTICALLY: word [k, c] holds rows 32k..32k+31 of image
-  column c ((ceil(H/32), W) words). Every VPU op then processes 32x the
-  pixels, and a full 1080p state is ~260 KB — the whole convergence loop
-  lives in VMEM with no HBM round trips between steps. Packing along ROWS
-  keeps the image-column axis minor: production widths are multiples of
-  the 128-lane tile (zero pad waste, the round ops run on exactly the
-  packed words), and pack/unpack become sublane-axis reshapes — no
-  cross-lane gathers in XLA, and the same reshape works inside a Pallas
-  kernel (ops/pallas/hysteresis_fused.py shares this module's round
-  schedule via the injectable shift primitives of ``_make_ops``).
+  column c ((ceil(H/32), W) words). Every vector op then processes 32x the
+  pixels, and a full 1080p state is ~260 KB. Packing along ROWS keeps the
+  image-column axis minor, so pack/unpack are reshapes along the major
+  axis with no cross-lane gathers.
 * **Carry-lookahead run propagation.** Promotion along a scan direction is
   exactly the carry recurrence of an adder: carry_i = g_i | (p_i & carry_-),
   with g = FINAL and p = CANDIDATE. Each of the 8 directions is resolved by
@@ -36,10 +27,10 @@ hysteresis on every backend:
 Promotion is monotone toward the unique global fixed point (the same one
 the oracle's BFS computes, numpy_oracle.hysteresis), so scan order affects
 only speed, never the result. ``max_iters`` caps rounds (the analog of the
-reference's 100-relaunch safety belt, cannyEdgeH.cu:313); because every
-backend runs this same round schedule — the Pallas kernel shares it
-function-for-function — outputs are bit-identical across backends even
-when the cap truncates (docs/parity.md).
+reference's 100-relaunch safety belt, cannyEdgeH.cu:313); every executor
+(single frame, vmapped batch, sharded round loop) runs this same round
+schedule, and numpy_oracle.hysteresis_capped writes it out on unpacked
+planes, so capped outputs are checked bit-for-bit (docs/parity.md).
 
 Everything here is plain jax.numpy on integer types: it runs unchanged on
 CPU (tests), under vmap (batched cameras), and inside shard_map (the
@@ -72,23 +63,18 @@ def _bit_iota() -> jnp.ndarray:
 
 
 #: Cap on the uint32 scratch a single pack/unpack pass may expand to
-#: (bytes) before the pass runs word-row-chunked. Within this size XLA
-#: keeps the expansion on-chip (the whole 1080p frame, 8.3 MB, compiles
-#: with an S(1)/VMEM placement); far past it the expansion falls off-chip
-#: and every packed word costs an extra 32-byte HBM round trip (measured
-#: 8K: 872 us unchunked vs 456 chunked, under the pre-r3 row packing).
+#: (bytes) before the pass runs word-row-chunked, so the 32x expansion of
+#: a mega-frame is never materialized whole (the 1080p frame, 8.3 MB,
+#: runs unchunked).
 _PACK_ONCHIP_BYTES = 16_500_000
 
-#: Target uint32-expansion size per chunk once a pass IS chunked. Swept on
-#: hardware at 8K (tools/pack_probe.py): ~8 MB beats both smaller (more
-#: lax.map iteration overhead) and larger (expansion spills) chunks.
+#: Target uint32-expansion size per chunk once a pass IS chunked.
 _PACK_CHUNK_TARGET = 8_000_000
 
 
 def _chunk_count(row_bytes: int) -> int:
     """Word-rows per chunk: the largest power of two whose expansion fits
-    the chunk target (measured: power-of-two counts are distinctly faster
-    than same-size non-powers; see tools/pack_probe.py)."""
+    the chunk target."""
     rows = max(1, _PACK_CHUNK_TARGET // row_bytes)
     return 1 << (rows.bit_length() - 1)
 
@@ -96,7 +82,7 @@ def _chunk_count(row_bytes: int) -> int:
 def _chunk_words(fn, x: jnp.ndarray, hw: int, word_row_bytes: int):
     """Apply ``fn`` over chunks of word-rows (each word-row = 32 image rows
     of ``x``, or 1 packed row, depending on direction) sized so each
-    chunk's uint32 expansion stays on-chip; single call when the whole
+    chunk's uint32 expansion stays bounded; single call when the whole
     array fits. ``x`` must already be padded to the word grid on axis 0
     (``hw`` word-rows of ``x.shape[0] // hw`` rows each)."""
     if hw * word_row_bytes <= _PACK_ONCHIP_BYTES:
@@ -113,12 +99,10 @@ def pack_mask(mask: jnp.ndarray) -> jnp.ndarray:
     """Pack a (H, W) boolean mask into (ceil(H/32), W) uint32 words,
     LSB-first along rows (bit j of word [k, c] = pixel [k*32 + j, c]).
 
-    The (kw, 32, W) shift-and-reduce runs on the SUBLANE axis — the image
-    column axis stays minor throughout, so XLA emits no cross-lane
-    gathers (the pre-r3 row packing reduced across lanes and measured
-    185 us at 4K; this form reuses the same reduce on a layout-friendly
-    axis). On mega-frames the pass runs word-row-chunked so its uint32
-    expansion stays on-chip (see _PACK_ONCHIP_BYTES)."""
+    The (kw, 32, W) shift-and-reduce runs along the major axis — the image
+    column axis stays minor throughout. On mega-frames the pass runs
+    word-row-chunked so its uint32 expansion stays bounded (see
+    _PACK_ONCHIP_BYTES)."""
     h, w = mask.shape
     hw = -(-h // 32)
     m = jnp.pad(mask, ((0, hw * 32 - h), (0, 0)))
@@ -138,7 +122,7 @@ def unpack_mask(words: jnp.ndarray, height: int) -> jnp.ndarray:
     def unpack_rows(rows_u32):
         bits = (rows_u32[:, None, :] >> _bit_iota()) & np.uint32(1)
         # -> bool INSIDE the chunk: a full-frame uint32 bit plane is the
-        # exact off-chip expansion the chunking exists to avoid.
+        # exact expansion the chunking exists to avoid.
         return bits.astype(jnp.bool_).reshape(rows_u32.shape[0] * 32, w)
 
     return _chunk_words(unpack_rows, words, hw, 32 * w * 4)[:height]
@@ -151,11 +135,10 @@ def pack_pair(thresh: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
     axis).
 
     Two regimes, picked by whether ONE mask's uint32 expansion fits the
-    on-chip budget (variants measured on hardware, tools/pack_probe.py):
+    budget:
 
-    * small frames (<= ~1080p): two separate pack_mask passes — each 8.3 MB
-      expansion stays on-chip and XLA fuses them cleanly into the engine
-      program (a fused pair holds 2x live and spills).
+    * small frames (<= ~1080p): two separate pack_mask passes that XLA
+      fuses into the engine program.
     * mega frames: ONE fused chunked pass reading ``thresh`` once for both
       masks, budgeting 2x per word-row since both expansions are live at
       once."""
@@ -195,8 +178,7 @@ def pack_pair(thresh: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 
 # Compute layout: (Hw, W) words-by-image-columns — image columns on the
-# minor/lane axis (production widths are 128-multiples: zero lane-pad
-# waste), packed word rows on the major axis. Horizontal neighbors are
+# minor axis, packed word rows on the major axis. Horizontal neighbors are
 # minor-axis shifts; vertical propagation is in-word bit shifts plus a
 # major-axis word shift for the cross-word carry.
 
@@ -314,13 +296,8 @@ def _shift_px_inexact(x: jnp.ndarray, s: int) -> jnp.ndarray:
 
 #: Exact (cross-word-carry) dilation cadence inside a fused round: every
 #: ``_CARRY_EVERY``-th step and the round's last step run exact, the rest
-#: carry-free (cheap). Swept on hardware (tools/round_op_probe.py):
-#: full-convergence loop 130 -> 114 us at 1080p, 895 -> 688 us at 4K going
-#: ce1 -> ce8; ce16 is within noise of ce8 at both sizes, ce8 keeps the
-#: word-boundary stall window shorter on adversarial content. The same
-#: probe shows truncated carry-lookahead "chase" rounds LOSE on real
-#: scenes (1.7-3.5 ms at 4K: a fixed direction order follows only ~2 chain
-#: segments per round), which is why phase 1 stays pure dilations.
+#: carry-free (cheap). Part of the round schedule, so cap-truncated outputs
+#: depend on it (numpy_oracle.hysteresis_capped takes the same value).
 _CARRY_EVERY = 8
 
 
@@ -332,15 +309,14 @@ def _make_ops(h: int, w: int, dilate_steps: int,
 
     ``shifts`` injects the three shift primitives as
     ``(shift_cols, shift_px, shift_px_inexact)`` — None means the XLA
-    pad/slice implementations. The Pallas fused kernel passes roll-based
-    primitives (ops/pallas/hysteresis_fused.py) so BOTH backends execute
-    the exact same round schedule, step cadence, and direction order: that
-    shared schedule is what keeps outputs bit-identical across backends
-    even when ``max_iters`` truncates before the fixed point.
+    pad/slice implementations. Any other implementation must keep the
+    same round schedule, step cadence and direction order: that shared
+    schedule is what keeps outputs bit-identical even when ``max_iters``
+    truncates before the fixed point.
 
     Both operators are monotone and dominated by the fixed point, so the
     converged result is identical whatever mix runs — the mix only trades
-    per-round cost against rounds needed (see docs/performance.md)."""
+    per-round cost against rounds needed."""
     shift_cols, shift_px, shift_px_ix = shifts or (
         _shift_cols, _shift_px, _shift_px_inexact
     )
@@ -391,11 +367,11 @@ def converge_packed(
     parallel/packed_halo.py).
 
     Two escalating phases (two sequential while_loops — no data-dependent
-    branching inside a loop body, which XLA:TPU handles poorly):
+    branching inside a loop body):
 
     1. rounds of ``dilate_steps`` fused bit-parallel dilations — optimal for
-       real scenes, whose chains are windy (each dilation is ~8 VPU ops on
-       1/32nd the pixels);
+       real scenes, whose chains are windy (each dilation is ~8 vector ops
+       on 1/32nd the pixels);
     2. if still growing after ``scan_after`` such rounds (long straight
        runs), rounds escalate to dilations + the 8-direction carry-lookahead
        scans, which promote whole monotone runs at once.
@@ -404,8 +380,8 @@ def converge_packed(
     size the doubling-step sequences); the planes may be larger
     (guard-ringed layouts: extra all-zero rows/lanes shift through as
     exact zero fill). ``shifts`` injects backend shift primitives exactly
-    as in :func:`_make_ops`. This IS the one round schedule every backend
-    executes (CLAUDE.md invariant).
+    as in :func:`_make_ops`. This IS the one round schedule every executor
+    runs (CLAUDE.md invariant).
     """
     dilates, scans = _make_ops(
         h, w, dilate_steps, carry_every=carry_every, shifts=shifts

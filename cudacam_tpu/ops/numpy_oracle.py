@@ -2,8 +2,8 @@
 
 This is the framework's *correctness anchor*: a slow, obviously-correct,
 bit-deterministic re-derivation of the reference pipeline's behavior
-(reference device kernels: src/cvp/cannyEdgeD.cu). The JAX/XLA ops and the
-Pallas kernels are each tested bit-exactly against this module.
+(reference device kernels: src/cvp/cannyEdgeD.cu). The JAX/XLA ops are
+tested bit-exactly against this module, on the CPU and on the GPU.
 
 Framework semantics (documented deviations from the CUDA reference — all
 chosen to make results *bit-deterministic across hardware*, which the
@@ -296,6 +296,106 @@ def hysteresis(thresh: np.ndarray, remove_candidates: bool = True) -> np.ndarray
     # Pre-cleanup view: promoted candidates are FINAL, others remain 128.
     out = np.where(reached, np.uint8(FINAL_EDGE), thresh)
     return out.astype(np.uint8)
+
+
+def _shift2d(x: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    """out[r, c] = x[r - dy, c - dx], zero fill outside the plane."""
+    h, w = x.shape
+    out = np.zeros_like(x)
+    if abs(dy) >= h or abs(dx) >= w:
+        return out
+    out[max(dy, 0) : h + min(dy, 0), max(dx, 0) : w + min(dx, 0)] = x[
+        max(-dy, 0) : h + min(-dy, 0), max(-dx, 0) : w + min(-dx, 0)
+    ]
+    return out
+
+
+def _doubling_steps(extent: int) -> list:
+    """Powers of two below ``extent``."""
+    steps, s = [], 1
+    while s < extent:
+        steps.append(s)
+        s *= 2
+    return steps
+
+
+def hysteresis_capped(
+    thresh: np.ndarray,
+    max_iters: int = 100,
+    inner_steps: int = 16,
+    scan_after: int = 10,
+    carry_every: int = 8,
+    remove_candidates: bool = True,
+    return_iters: bool = False,
+):
+    """Hysteresis under the framework's round cap, on plain boolean planes.
+
+    ``hysteresis`` above gives the fixed point; this gives what the round
+    schedule reaches when ``max_iters`` stops it first (the analog of the
+    reference's 100-relaunch safety belt, cannyEdgeH.cu:313). It is the
+    schedule of ops/bitpack.py written without bit packing, so the capped
+    output of every executor can be checked against it:
+
+    * a step promotes candidates 8-adjacent to a FINAL pixel. Intermediate
+      steps are "inexact": they ignore vertical neighbours across the
+      32-row bands the packed layout stores in one word (rows 31/32,
+      63/64, ...). Every ``carry_every``-th step and the round's last step
+      are exact;
+    * a phase-1 round is ``inner_steps`` steps. After ``scan_after``
+      rounds, each round also runs a scan along each of the 8 directions
+      (right, left, down, up, down-right, up-left, down-left, up-right)
+      that promotes a whole candidate run behind a FINAL pixel;
+    * rounds stop when the FINAL count stops growing, or at ``max_iters``
+      rounds (at least one round always runs).
+    """
+    cand = thresh == CANDIDATE_EDGE
+    f = thresh == FINAL_EDGE
+    h, w = f.shape
+    band = np.arange(h)[:, None] % 32
+    band_top, band_bot = band == 0, band == 31
+
+    def step(f, exact):
+        v = f | _shift2d(f, 0, 1) | _shift2d(f, 0, -1)
+        down, up = _shift2d(v, 1, 0), _shift2d(v, -1, 0)
+        if not exact:
+            down &= ~band_top
+            up &= ~band_bot
+        return f | (cand & (v | down | up))
+
+    def dilates(f):
+        for i in range(1, inner_steps + 1):
+            f = step(f, i % carry_every == 0 or i == inner_steps)
+        return f
+
+    hs, vs, ds = _doubling_steps(w), _doubling_steps(h), _doubling_steps(min(h, w))
+    directions = (
+        (0, 1, hs), (0, -1, hs), (1, 0, vs), (-1, 0, vs),
+        (1, 1, ds), (-1, -1, ds), (1, -1, ds), (-1, 1, ds),
+    )
+
+    def scans(f):
+        for dy, dx, steps in directions:
+            g, p = f, cand
+            for s in steps:
+                g = g | (p & _shift2d(g, dy * s, dx * s))
+                p = p & _shift2d(p, dy * s, dx * s)
+            f = g
+        return f
+
+    prev, f = int(f.sum()), dilates(f)
+    cur, it = int(f.sum()), 1
+    while cur > prev and it < min(scan_after, max_iters):
+        f = dilates(f)
+        prev, cur, it = cur, int(f.sum()), it + 1
+    while cur > prev and it < max_iters:
+        f = scans(dilates(f))
+        prev, cur, it = cur, int(f.sum()), it + 1
+
+    if remove_candidates:
+        out = np.where(f, np.uint8(FINAL_EDGE), np.uint8(NO_EDGE))
+    else:
+        out = np.where(f, np.uint8(FINAL_EDGE), thresh).astype(np.uint8)
+    return (out, it) if return_iters else out
 
 
 def float2uchar(x: np.ndarray) -> np.ndarray:

@@ -9,9 +9,8 @@ All functions take/return single-frame (H, W[, C]) arrays; batching is done
 with jax.vmap at the pipeline level. Stencil borders are zero-padded, exactly
 like the reference's shared-memory tile fill (cannyEdgeD.cu:91-98).
 
-XLA fuses the pointwise chains here into a handful of HBM passes; the Pallas
-backend (cudacam_tpu/ops/pallas/) fuses further and keeps the hysteresis
-fixed point entirely in VMEM.
+XLA fuses the pointwise chains here into a handful of device-memory passes;
+hysteresis runs on bit-packed planes (ops/bitpack.py).
 """
 from __future__ import annotations
 
@@ -30,12 +29,9 @@ from cudacam_tpu.stages import CANDIDATE_EDGE, FINAL_EDGE, NO_EDGE, CannyStage
 def rgb2mono(bgr: jnp.ndarray) -> jnp.ndarray:
     """Fixed-point BGR grayscale (reference cannyEdgeD.cu:53-69).
 
-    Slice channels BEFORE the int32 upcast: TPU stores the (H, W, 3) u8
-    frame channel-major ({1,0,2} layout), so each channel slice is a free
-    layout view and the upcasts fuse into the weighted-sum loop. Upcasting
-    the rank-3 array first materializes a 4x-sized int32 copy of the whole
-    frame, which falls off on-chip memory on mega-frames (8K: 1398 us ->
-    192 us, 695 GB/s, for this one-line reordering)."""
+    Slice channels BEFORE the int32 upcast, so the upcasts fuse into the
+    weighted-sum loop instead of materializing a 4x-sized int32 copy of the
+    whole frame first."""
     if bgr.ndim == 2:
         return bgr.astype(jnp.uint8)
     acc = (
@@ -279,9 +275,9 @@ def hysteresis(
     ``scan_after`` rounds, then checks global convergence on-device — no
     host round-trip per iteration, unlike the reference's per-iteration flag
     readback (cannyEdgeH.cu:310,322). ``max_iters`` is the safety belt
-    (reference caps at 100 relaunches, cannyEdgeH.cu:313). Every backend
+    (reference caps at 100 relaunches, cannyEdgeH.cu:313). Every executor
     calls this same implementation, so outputs are bit-identical across
-    backends even when the cap truncates.
+    them even when the cap truncates (numpy_oracle.hysteresis_capped).
     """
     from cudacam_tpu.ops.bitpack import hysteresis_packed
 
@@ -304,8 +300,8 @@ def hysteresis_dilate_loop(
 ):
     """Legacy unpacked dilate-loop hysteresis (the pre-bitpack XLA path).
 
-    Kept as an independently-derived implementation for differential tests;
-    ~25x slower than the packed default at 1080p. Semantics note: its cap
+    Kept as an independently-derived implementation for differential tests.
+    Semantics note: its cap
     truncates at max_iters*inner_steps pixel steps, which can differ from
     the packed cap's truncation point — only the converged fixed points are
     guaranteed identical.
@@ -372,8 +368,7 @@ def compute_threshold_map(
     The 'reference' comparison is evaluated WITHOUT per-pixel sqrt by
     mapping each traced threshold to a scalar bound in the comparable
     magnitude domain (threshold_magnitude_bound): exact, and removes the
-    isqrt chain from the hot path (the Pallas kernel uses the identical
-    derivation, feedforward.py)."""
+    isqrt chain from the hot path."""
     keep = nms_keep_mask(sum_x, sum_y, cfg.norm)
     if cfg.parity == "reference":
         g = _comparable_magnitude(sum_x, sum_y, cfg.norm)

@@ -1,11 +1,11 @@
-"""Multi-host initialisation and pod-wide mesh construction.
+"""Multi-host initialisation and cluster-wide mesh construction.
 
 The reference has no distributed backend at all (no NCCL/MPI/Gloo — SURVEY.md
 §2.4); this is the framework's. Multi-host runs use ``jax.distributed`` (one
-process per host, TPU runtime handles ICI/DCN transport); every process then
-builds the same global (b, y, x) mesh over ``jax.devices()`` and the sharded
-pipeline (cudacam_tpu/parallel/sharded.py) runs SPMD with halo exchange over
-ICI and convergence psums.
+process per host; XLA hands the collectives to NCCL on GPUs); every process
+then builds the same global (b, y, x) mesh over ``jax.devices()`` and the
+sharded pipeline (cudacam_tpu/parallel/sharded.py) runs SPMD with halo
+exchange and convergence psums.
 
 Typical multi-host launch (one command per host)::
 
@@ -15,8 +15,8 @@ Typical multi-host launch (one command per host)::
 or programmatically::
 
     from cudacam_tpu.parallel.distributed import initialize, pod_mesh
-    initialize()                 # env-driven on Cloud TPU pods
-    mesh = pod_mesh(batch=1)     # all chips on the row axis
+    initialize("host0:8476", num_processes=4, process_id=ID)
+    mesh = pod_mesh(batch=1)     # all devices on the row axis
 """
 from __future__ import annotations
 
@@ -37,9 +37,9 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialise jax.distributed (idempotent). With no arguments, relies on
-    the TPU pod environment's autodetection (Cloud TPU sets the coordinator
-    and process topology for every worker)."""
+    """Initialise jax.distributed (idempotent). Arguments left as None are
+    left to jax's own cluster autodetection, which finds nothing on a plain
+    GPU host: there, pass all three."""
     global _initialized
     if _initialized:
         return
@@ -62,9 +62,9 @@ def initialize(
 
 
 def pod_mesh(batch: int = 1, cols: int = 1):
-    """Global (b, y, x) mesh over every device in the pod slice; all
-    remaining devices go to the row axis so a mega-frame's halo exchange is
-    nearest-neighbor over the ICI ring."""
+    """Global (b, y, x) mesh over every device of every process; all
+    remaining devices go to the row axis, so a mega-frame's halo exchange
+    is with two neighbours."""
     return make_mesh(batch=batch, cols=cols, devices=jax.devices())
 
 
@@ -73,7 +73,7 @@ def is_coordinator() -> bool:
     return jax.process_index() == 0
 
 
-def _main() -> int:  # pragma: no cover - requires a real pod
+def _main() -> int:  # pragma: no cover - requires several hosts
     """Tiny launcher: initialise distributed, then delegate to the CLI."""
     import argparse
     import sys

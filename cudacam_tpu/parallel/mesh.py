@@ -1,9 +1,11 @@
 """Device-mesh construction helpers.
 
 The reference is single-process single-GPU (SURVEY.md §2.4); this module is
-the TPU-native scaling substrate it never had: a named 3-axis mesh
-(batch 'b' = camera streams, 'y' = frame rows, 'x' = frame cols) over which
-frames are tile-partitioned with halo exchange over ICI/DCN.
+the scaling substrate it never had: a named 3-axis mesh (batch 'b' = camera
+streams, 'y' = frame rows, 'x' = frame cols) over which frames are
+tile-partitioned with halo exchange between neighbouring devices. The mesh
+is a plain reshape of the device list: the cards of one host are joined all
+to all, so no device order is better than another.
 """
 from __future__ import annotations
 
@@ -26,8 +28,7 @@ def make_mesh(
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
     """Build a (b, y, x) mesh. By default all devices go to the row axis
-    (row-sharding a mega-frame keeps halo exchange to two neighbors and
-    rides ICI ring bandwidth)."""
+    (row-sharding a mega-frame keeps halo exchange to two neighbors)."""
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)
     if rows is None:

@@ -1,25 +1,20 @@
 """Packed-state halo exchange for sharded hysteresis.
 
-Round 3's sharded hysteresis carried the u8 tile as loop state and ran the
-whole fused hysteresis kernel per collective round — re-packing and
-re-unpacking the full tile every round and exchanging *unpacked* u8 halos
-(33.8 KB/round at 1080p). Measured consequence: 2.27x framework overhead
-on a 1x1x1 mesh (VERDICT r3). This module makes the BIT-PACKED planes of
-ops/bitpack.py the carried state instead:
+Carrying the u8 tile as loop state would re-pack and re-unpack the full
+tile every collective round and exchange *unpacked* u8 halos. This module
+makes the BIT-PACKED planes of ops/bitpack.py the carried state instead:
 
 * each shard holds (FINAL, CANDIDATE) planes packed over an EXTENDED tile
   grid (halo slots around the owned core, 32 px vertical / 64 px
-  horizontal for production tiles) — pack happens ONCE per frame (inside
-  the feed-forward megakernel on the Pallas backend), unpack ONCE at
-  convergence;
+  horizontal for production tiles) — pack happens ONCE per frame, unpack
+  ONCE at convergence;
 * a collective round exchanges packed strips — ONE uint32 word-row per
   vertical side (~1/8th the bytes of the u8 halos) and 64 u32 lanes per
   horizontal side — and ORs them into the neighbor slots. OR (not
   replace) is sound: every exchanged bit is a promotion below the global
   fixed point, and promotion is monotone;
 * the local saturate operator runs directly on the packed planes
-  (``bitpack.converge_packed`` as XLA ops, or the Pallas kernel
-  ``hysteresis_fused.saturate_packed`` — both execute the ONE
+  (``bitpack.converge_packed``, which executes the ONE
   ``bitpack._make_ops`` round schedule);
 * the loop terminates when a global psum sees neither local growth nor any
   new halo bits anywhere: cores are then locally saturated w.r.t. stable
@@ -31,10 +26,9 @@ device->host flag readback (/root/reference/src/cvp/cannyEdgeH.cu:297-338,
 exchange replaces the halo reload each relaunch performed through global
 memory.
 
-Layout contract (shared with the Pallas kernels): planes are
-``(plane_rows, plane_lanes)`` uint32; bit b of word [k, c] is extended-tile
-pixel (32*k + b, c); rows/lanes past the extended tile are permanent zeros
-(the Pallas guard ring — ``pltpu.roll`` wraparound lands only there).
+Layout contract: planes are ``(plane_rows, plane_lanes)`` uint32; bit b of
+word [k, c] is extended-tile pixel (32*k + b, c); rows past the extended
+tile (the tail bits and one guard word-row) are permanent zeros.
 The owned core sits at pixel rows [e_top, e_top + h_loc) and lanes
 [e_left, e_left + w_loc); the surrounding slots hold neighbor state. Core
 bit offsets are arbitrary (e_top is not a word multiple in general), so
@@ -62,7 +56,7 @@ class PackedGeo:
     e_left: int
     e_right: int
     plane_rows: int  # total u32 word rows (incl. tail + guard zeros)
-    plane_lanes: int  # total lanes (incl. guard zeros)
+    plane_lanes: int  # total lanes
 
     @property
     def ext_h(self) -> int:
@@ -81,11 +75,8 @@ class PackedGeo:
 def make_geo(
     h_loc: int,
     w_loc: int,
-    granule: bool = False,
     ny: int = 2,
     nx: int = 2,
-    plane_rows: int | None = None,
-    plane_lanes: int | None = None,
 ) -> PackedGeo:
     """Geometry for a (h_loc, w_loc) owned tile on an (ny, nx) tile grid.
 
@@ -95,24 +86,14 @@ def make_geo(
     has no neighbors and gets zero slots — on a 1x1x1 mesh the extended
     grid degenerates to the raw tile, so the sharded program carries no
     extension overhead at all there (and a row-only mesh carries none on
-    the column axis). ``granule=True`` pads the extended tile to the
-    Pallas DMA granules (ext_h % 8 == 0, ext_w % 128 == 0) by growing the
-    bottom/right slots — the megakernel ingests the extended planar tile
-    directly at those shapes. ``plane_rows``/``plane_lanes`` override the
-    plane allocation (the megakernel's export planes carry
-    slab-granularity tail rows plus the guard ring)."""
+    the column axis)."""
     e_top = min(32, h_loc) if ny > 1 else 0
     e_left = min(64, w_loc) if nx > 1 else 0
     e_bot, e_right = e_top, e_left
-    if granule:
-        e_bot += (-(h_loc + e_top + e_bot)) % 8
-        e_right += (-(w_loc + e_left + e_right)) % 128
     ext_h = e_top + h_loc + e_bot
     ext_w = e_left + w_loc + e_right
-    if plane_rows is None:
-        plane_rows = -(-ext_h // 32) + 1  # +1 guard word-row
-    if plane_lanes is None:
-        plane_lanes = ext_w + (128 if granule else 0)
+    plane_rows = -(-ext_h // 32) + 1  # +1 guard word-row
+    plane_lanes = ext_w
     return PackedGeo(
         h_loc, w_loc, e_top, e_bot, e_left, e_right, plane_rows, plane_lanes
     )
@@ -151,8 +132,8 @@ def _or_place32(
     x: jnp.ndarray, strip: jnp.ndarray, b: int, cap_bits: int
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """OR a 32-row strip into plane rows [b, b+32), dropping bits outside
-    [0, cap_bits) (rows the extended tile does not cover — keeping the
-    tail/guard words all-zero is the Pallas roll-wrap invariant). Returns
+    [0, cap_bits) (rows the extended tile does not cover — the tail and
+    guard words stay all-zero). Returns
     (plane, any_new_bits)."""
     if b < 0:
         strip = strip >> np.uint32(-b)
@@ -199,16 +180,9 @@ def exchange_packed(
     col_axis: str,
     ny: int,
     nx: int,
-    permute: Callable = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """One halo refresh of plane ``x``: OR each neighbor's boundary strips
     into this shard's halo slots. Returns (plane, any_new_bits).
-
-    ``permute(strip, axis_name, perm)`` is injectable (default
-    ``jax.lax.ppermute``) so the single-chip member-tile measurement
-    program (tools/member_tile_probe.py) can run the EXACT strip
-    extraction/placement arithmetic with the wire hop substituted by an
-    optimization barrier — the ICI wire time is modeled separately.
 
     Vertical strips are one (1, lanes) word-row spanning ALL lanes (so
     they carry the sender's column halos); the column exchange then sends
@@ -219,8 +193,7 @@ def exchange_packed(
     GLOBAL pixel coordinates, so a strip may include halo-region bits the
     sender itself received — those are valid promotions below the fixed
     point, and OR keeps everything monotone-safe."""
-    if permute is None:
-        permute = jax.lax.ppermute
+    permute = jax.lax.ppermute
     new = jnp.bool_(False)
     cap = geo.ext_h
     if ny > 1:
@@ -267,11 +240,10 @@ def packed_hysteresis_loop(
     """Converge the sharded fixed point on packed planes.
 
     ``saturate(f, p) -> (f, growing)`` is the injectable local operator
-    (``bitpack.converge_packed`` in XLA form, or the fused Pallas kernel
-    ``hysteresis_fused.saturate_packed`` — both run the shared
+    (``bitpack.converge_packed`` by default, running the shared
     ``_make_ops`` schedule). ``still_growing`` is the entry state's flag
-    (True when the producing kernel hit its round cap before the LOCAL
-    fixed point, e.g. the megakernel's phase-1 exit). The candidate plane
+    (True when the producer stopped before the LOCAL fixed point). The
+    candidate plane
     is static across rounds — it is exchanged ONCE up front to deepen the
     halo candidates; only FINAL strips move per round.
 

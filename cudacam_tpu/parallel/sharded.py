@@ -7,21 +7,18 @@ and of its host-coordinated hysteresis relaunch loop (cannyEdgeH.cu:297-338):
 - a mega-frame (or batch of camera frames) is partitioned over a
   (batch 'b', rows 'y', cols 'x') mesh;
 - each stencil round extends the local tile with halo rows/cols fetched from
-  neighbor shards via ``jax.lax.ppermute`` (ICI neighbor exchange; missing
-  neighbors arrive as zeros, which IS the reference's zero-padding semantics,
+  neighbor shards via ``jax.lax.ppermute`` (missing neighbors arrive as
+  zeros, which IS the reference's zero-padding semantics,
   cannyEdgeD.cu:91-98);
 - the whole mono->threshold chain runs on a once-extended tile, so there is
   ONE halo exchange for all feed-forward stages, not one per stage;
 - hysteresis converges on BIT-PACKED planes (ops/bitpack.py's layout) that
   stay the carried state across collective rounds
-  (parallel/packed_halo.py): pack happens once per frame — on the Pallas
-  backend *inside* the feed-forward megakernel
-  (megakernel.canny_mega_export: raw planar tile in, packed planes out, one
-  launch) — each round exchanges packed strips (1 word-row / 64 u32 lanes
-  per side, ~1/8th the bytes of u8 halos) and runs an injectable local
-  saturate (``bitpack.converge_packed`` as XLA ops or the fused Pallas
-  kernel ``hysteresis_fused.saturate_packed`` — the ONE shared
-  ``bitpack._make_ops`` round schedule either way), and a ``psum``'d
+  (parallel/packed_halo.py): pack happens once per frame, each round
+  exchanges packed strips (1 word-row / 64 u32 lanes per side, ~1/8th the
+  bytes of u8 halos) and runs an injectable local saturate
+  (``bitpack.converge_packed`` by default — the ONE shared
+  ``bitpack._make_ops`` round schedule), and a ``psum``'d
   convergence flag replaces the reference's per-iteration device->host
   flag readback (cannyEdgeH.cu:310,322). Unpack happens once, at global
   convergence. Collective rounds are bounded by the cross-shard edge
@@ -30,14 +27,10 @@ and of its host-coordinated hysteresis relaunch loop (cannyEdgeH.cu:297-338):
 Correctness note (pollution depth): running the zero-padding single-chip ops
 on a tile extended by the *total* halo H yields exact values in the core,
 because stage k's output at extended-row r is exact for r >= (sum of stage
-halos up to k), which is <= H at the final pre-hysteresis stage. The Pallas
-path computes the feed-forward over the DEEPER hysteresis extension and
-zeroes the polluted outer ring in-kernel (megakernel ``ring`` mask), which
-additionally pre-populates the halo slots with exact neighbor state.
+halos up to k), which is <= H at the final pre-hysteresis stage.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Callable, Optional
 
@@ -97,20 +90,11 @@ def _trim(x: jnp.ndarray, h: int, axes: tuple[int, ...]) -> jnp.ndarray:
     return x[tuple(idx)]
 
 
-def _pl_saturate_ok(geo: PackedGeo) -> bool:
-    """The Pallas saturate kernel includes the phase-2 scans, whose
-    compile budget is the fused hysteresis kernel's plane budget."""
-    from cudacam_tpu.ops.pallas.hysteresis_fused import _PLANE_BUDGET
-
-    return geo.plane_rows * geo.plane_lanes * 4 <= _PLANE_BUDGET
-
-
 def xla_packed_saturate(cfg: CannyConfig, geo: PackedGeo) -> Callable:
     """The portable local-saturation operator for the packed round loop:
     ``bitpack.converge_packed`` (both escalating phases of the ONE shared
     round schedule) directly on the carried planes. Pure jnp — identical
-    code on CPU virtual meshes, a real TPU slice, and a multi-process
-    pod."""
+    code on CPU virtual meshes, GPUs, and a multi-process cluster."""
 
     def saturate(f, p):
         nf, _, growing = bitpack.converge_packed(
@@ -124,48 +108,20 @@ def xla_packed_saturate(cfg: CannyConfig, geo: PackedGeo) -> Callable:
     return saturate
 
 
-def pallas_packed_saturate(
-    cfg: CannyConfig, geo: PackedGeo, interpret: bool = False
-) -> Callable:
-    """The Pallas local-saturation operator: the whole two-phase
-    convergence in ONE kernel on the VMEM-resident planes
-    (hysteresis_fused.saturate_packed) — same factory schedule, so
-    swapping operators never changes the converged result."""
-    from cudacam_tpu.ops.pallas.hysteresis_fused import saturate_packed
-
-    def saturate(f, p):
-        return saturate_packed(
-            f, p, geo.ext_h, geo.ext_w,
-            dilate_steps=cfg.hysteresis_inner_steps,
-            scan_after=cfg.hysteresis_scan_after,
-            max_iters=cfg.max_hysteresis_iters,
-            interpret=interpret,
-        )
-
-    return saturate
-
-
 def build_sharded_pipeline(
     cfg: CannyConfig,
     mesh: Mesh,
     final_stage: CannyStage = CannyStage.HYSTER,
-    backend: str = "xla",
     local_saturate: Optional[Callable] = None,
 ) -> Callable:
     """Return a jitted fn(frame, low, high) running the pipeline sharded over
     ``mesh``. ``frame`` is (B, H, W[, C]) uint8 with B % mesh('b') == 0,
     H % mesh('y') == 0, W % mesh('x') == 0.
 
-    ``backend='pallas'`` (real TPU meshes) runs each shard through the
-    export-mode megakernel (raw planar halo-extended tile -> packed planes,
-    one launch, zero XLA pre-passes) and the fused Pallas saturate;
-    'xla' is the portable default (virtual CPU meshes, the driver dry-run).
-    Both run the same packed round loop (parallel/packed_halo.py) with
+    Hysteresis runs the packed round loop (parallel/packed_halo.py) with
     ``local_saturate`` as the injectable ``(f, p) -> (f, growing)``
-    operator (default: the backend's packed saturate above).
+    operator (default: :func:`xla_packed_saturate`).
     """
-    if backend not in ("xla", "pallas"):
-        raise ValueError("backend must be 'xla' or 'pallas'")
     final_stage = CannyStage(final_stage)
     ny = mesh.shape[ROW_AXIS]
     nx = mesh.shape[COL_AXIS]
@@ -181,43 +137,12 @@ def build_sharded_pipeline(
         )
 
     # --- hysteresis state geometry (packed_halo module docstring) ---------
-    # The Pallas path computes feed-forward + pack + phase-1 in ONE
-    # megakernel over the granule-padded extension; it needs the extension
-    # depths (<= 39 rows / 191 cols) to fit the neighbor tile, and the
-    # packed planes to fit the kernel's VMEM budget. Everything else uses
-    # the minimal extension with the XLA packed ops.
-    use_mega = False
-    mega_geo = None
-    if backend == "pallas" and final_stage == CannyStage.HYSTER:
-        from cudacam_tpu.ops.pallas.megakernel import mega_export_geometry
-
-        g = make_geo(h_loc, w_loc, granule=True, ny=ny, nx=nx)
-        if (ny == 1 or h_loc >= max(40, g.e_bot)) and (
-            nx == 1 or w_loc >= max(192, g.e_right)
-        ):
-            mg = mega_export_geometry(g.ext_h, g.ext_w)
-            if mg is not None:
-                use_mega = True
-                _, _, hwp, wp = mg
-                mega_geo = dataclasses.replace(
-                    g, plane_rows=hwp, plane_lanes=wp
-                )
-    geo = (
-        mega_geo
-        if use_mega
-        else make_geo(h_loc, w_loc, granule=False, ny=ny, nx=nx)
+    geo = make_geo(h_loc, w_loc, ny=ny, nx=nx)
+    saturate = (
+        local_saturate
+        if local_saturate is not None
+        else xla_packed_saturate(cfg, geo)
     )
-
-    if local_saturate is not None:
-        saturate = local_saturate
-    elif use_mega and _pl_saturate_ok(geo):
-        saturate = pallas_packed_saturate(cfg, geo, interpret=cfg.interpret)
-    else:
-        # Portable — and also the route for tiles whose planes exceed the
-        # SCAN kernel's budget (the saturate kernel carries the
-        # 8-direction scans, which don't compile at 8K-class shapes;
-        # docs/performance.md).
-        saturate = xla_packed_saturate(cfg, geo)
 
     has_c = cfg.channels == 3
     frame_spec = P(BATCH_AXIS, ROW_AXIS, COL_AXIS, None) if has_c else P(BATCH_AXIS, ROW_AXIS, COL_AXIS)
@@ -228,12 +153,6 @@ def build_sharded_pipeline(
         carries the corner blocks)."""
         x = _exchange_halo(x, h, h, 0, ROW_AXIS, ny)
         return _exchange_halo(x, h, h, 1, COL_AXIS, nx)
-
-    def extend2d_asym(x: jnp.ndarray) -> jnp.ndarray:
-        """Halo extension to the packed-state grid (geo's asymmetric
-        depths; granule-padded on the Pallas path)."""
-        x = _exchange_halo(x, geo.e_top, geo.e_bot, 0, ROW_AXIS, ny)
-        return _exchange_halo(x, geo.e_left, geo.e_right, 1, COL_AXIS, nx)
 
     def _origin():
         ry = jax.lax.axis_index(ROW_AXIS)
@@ -251,74 +170,6 @@ def build_sharded_pipeline(
         rows = row0 - h + jax.lax.broadcasted_iota(jnp.int32, (ext_h, ext_w), 0)
         cols = col0 - h + jax.lax.broadcasted_iota(jnp.int32, (ext_h, ext_w), 1)
         return (rows >= 0) & (rows < cfg.height) & (cols >= 0) & (cols < cfg.width)
-
-    def local_feed_forward_pallas(tile: jnp.ndarray, low, high):
-        """Pallas path for display stages: one fused kernel over the
-        halo-extended tile, with the tile's global origin pinning
-        border-zero semantics. Granule-eligible tiles feed the kernel the
-        RAW planar extension (zero XLA pre-passes — the asymmetric
-        extension grid is granule-padded by construction); others fall
-        back to the XLA mono pass."""
-        from cudacam_tpu.ops.pallas.feedforward import feed_forward_to_stage
-
-        ff_stage = (
-            final_stage if final_stage != CannyStage.HYSTER else CannyStage.THRESH
-        )
-        # Mesh-aware geometry: a single-shard axis has no neighbors, so it
-        # carries no halo extension (only granule padding) — and a FULLY
-        # degenerate mesh passes origin=None so the kernel's valid-mask
-        # strips stay static (the same traced-origin constant-fold tax
-        # hyster_pallas_mega avoids, ~7 us/frame; ADVICE r4).
-        g = make_geo(h_loc, w_loc, granule=True, ny=ny, nx=nx)
-        if (
-            final_stage != CannyStage.MONO
-            and (ny == 1 or h_loc >= g.e_bot)
-            and (nx == 1 or w_loc >= g.e_right)
-        ):
-            if ny == 1 and nx == 1:
-                org = None  # tile IS the global frame (granule pads are
-                # masked via image_size; origin stays a static zero)
-            else:
-                row0, col0 = _origin()
-                org = (
-                    0 if ny == 1 else row0 - g.e_top,
-                    0 if nx == 1 else col0 - g.e_left,
-                )
-            ext = _exchange_halo(tile, g.e_top, g.e_bot, 0, ROW_AXIS, ny)
-            ext = _exchange_halo(ext, g.e_left, g.e_right, 1, COL_AXIS, nx)
-            out = feed_forward_to_stage(
-                jnp.transpose(ext, (2, 0, 1)) if has_c else ext,
-                low,
-                high,
-                kernel_size=cfg.kernel_size,
-                grad_coeff=cfg.grad_coeff,
-                norm=cfg.norm,
-                parity=cfg.parity,
-                out_stage=ff_stage,
-                origin=org,
-                image_size=(cfg.height, cfg.width),
-            )
-            return out[
-                g.e_top : g.e_top + h_loc, g.e_left : g.e_left + w_loc
-            ]
-        row0, col0 = _origin()
-        ext = extend2d(tile, halo)
-        mono = xla_ops.rgb2mono(ext)
-        if final_stage == CannyStage.MONO:
-            return _trim(mono, halo, (0, 1))
-        out = feed_forward_to_stage(
-            mono,
-            low,
-            high,
-            kernel_size=cfg.kernel_size,
-            grad_coeff=cfg.grad_coeff,
-            norm=cfg.norm,
-            parity=cfg.parity,
-            out_stage=ff_stage,
-            origin=(row0 - halo, col0 - halo),
-            image_size=(cfg.height, cfg.width),
-        )
-        return _trim(out, halo, (0, 1))
 
     def local_feed_forward(tile: jnp.ndarray, low, high):
         """mono -> ... -> final_stage on a halo-extended tile, masking each
@@ -351,8 +202,7 @@ def build_sharded_pipeline(
         """Portable packed hysteresis from a trimmed core threshold map:
         pack ONCE into the extended grid (zero halos — the first exchange
         populates them), run the packed collective round loop, unpack
-        ONCE. Replaces r3's per-round full-tile pack/unpack + u8 halo
-        exchange (2.27x framework overhead, VERDICT r3)."""
+        ONCE."""
         t_ext = jnp.pad(
             thresh,
             (
@@ -379,49 +229,6 @@ def build_sharded_pipeline(
             reached, jnp.uint8(FINAL_EDGE), jnp.uint8(NO_EDGE)
         )
 
-    def hyster_pallas_mega(tile: jnp.ndarray, low, high) -> jnp.ndarray:
-        """The Pallas hot path: ONE megakernel launch per tile (raw planar
-        extension in, locally-phase-1-converged packed planes out), the
-        packed round loop with the fused saturate kernel, one unpack
-        kernel at convergence."""
-        from cudacam_tpu.ops.pallas.megakernel import (
-            canny_mega_export,
-            unpack_core_call,
-        )
-
-        ext = extend2d_asym(tile)
-        if ny == 1 and nx == 1:
-            # Degenerate mesh: the tile IS the global frame (zero halo
-            # slots, zero ring) — a None origin keeps the kernel's
-            # valid-mask strips static, exactly the unsharded program.
-            org = None
-        else:
-            row0, col0 = _origin()
-            org = (row0 - geo.e_top, col0 - geo.e_left)
-        f, p, flags = canny_mega_export(
-            jnp.transpose(ext, (2, 0, 1)) if has_c else ext,
-            low,
-            high,
-            org,
-            image_size=(cfg.height, cfg.width),
-            ring=(halo if ny > 1 else 0, halo if nx > 1 else 0),
-            kernel_size=cfg.kernel_size,
-            grad_coeff=cfg.grad_coeff,
-            norm=cfg.norm,
-            parity=cfg.parity,
-            dilate_steps=cfg.hysteresis_inner_steps,
-            scan_after=cfg.hysteresis_scan_after,
-            max_iters=cfg.max_hysteresis_iters,
-            interpret=cfg.interpret,
-        )
-        f = packed_hysteresis_loop(
-            f, p, flags[0, 1] == 1, geo, saturate, AXES, ny, nx,
-            cfg.max_hysteresis_iters,
-        )
-        return unpack_core_call(
-            f, geo.e_top, geo.e_left, h_loc, w_loc, interpret=cfg.interpret
-        )
-
     @functools.partial(
         shard_map,
         mesh=mesh,
@@ -431,22 +238,11 @@ def build_sharded_pipeline(
     )
     def sharded(frame, low, high):
         def per_frame(tile):
-            if final_stage == CannyStage.HYSTER and use_mega:
-                return hyster_pallas_mega(tile, low, high)
-            if final_stage != CannyStage.HYSTER and backend == "pallas":
-                return local_feed_forward_pallas(tile, low, high)
-            if backend == "pallas":
-                thresh = local_feed_forward_pallas(tile, low, high)
-            else:
-                thresh = local_feed_forward(tile, low, high)
+            thresh = local_feed_forward(tile, low, high)
             if final_stage == CannyStage.HYSTER:
                 return hyster_from_thresh(thresh)
             return thresh
 
-        if backend == "pallas":
-            # Pallas kernels use manual DMA grids that don't vectorise under
-            # vmap; iterate the local batch inside the compiled program.
-            return jax.lax.map(per_frame, frame)
         return jax.vmap(per_frame)(frame)
 
     @jax.jit

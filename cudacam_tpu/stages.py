@@ -1,6 +1,6 @@
 """Canny pipeline stage identifiers.
 
-TPU-native analog of the reference's ``CannyStage`` enum and display-name map
+The analog of the reference's ``CannyStage`` enum and display-name map
 (reference: src/cvp/define.hpp:9-34). Stage selection is a first-class product
 feature: running the pipeline with ``final_stage = k`` executes stages 0..k
 cumulatively (reference: src/cvp/cannyEdgeH.cu:49-120).

@@ -3,13 +3,10 @@
 The reference ships opt-in sanitizers (ASan/LSan/UBSan/TSan/MSan, reference
 cmake/Sanitizers.cmake:13-47) and clang-tidy/cppcheck hooks; its CUDA error
 contract is fail-fast (`checkCudaErrors` logs and exits, helper.hpp:4-17).
-The TPU-native analogs:
+The analogs here:
 
 * ``enable_checks()`` — turn on JAX's runtime validators (NaN checks and
   internal invariant checks) for a debugging session;
-* ``interpreted_pallas()`` — run every Pallas kernel through the Mosaic
-  interpreter inside the context (slow; catches memory-model misuse the
-  compiled path can't report);
 * ``device_health_check()`` — fail-fast canary: run a tiny computation and
   verify the result, raising ``DeviceError`` with the platform context if
   the device is wedged (the `checkCudaErrors` role — surfacing device
@@ -19,7 +16,6 @@ Enable ``CUDACAM_DEBUG=1`` to switch checks on at import.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 
 from cudacam_tpu.utils.logging import get_logger
@@ -49,15 +45,6 @@ def disable_checks() -> None:
 
     jax.config.update("jax_debug_nans", False)
     jax.config.update("jax_enable_checks", False)
-
-
-@contextlib.contextmanager
-def interpreted_pallas():
-    """Run Pallas kernels in interpreter mode within the context."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def device_health_check() -> str:

@@ -1,6 +1,6 @@
 """Shard a mega-frame over a device mesh with halo exchange.
 
-Works on real multi-chip slices or on virtual CPU devices:
+Works on several GPUs or on virtual CPU devices:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/sharded_megaframe.py
@@ -26,12 +26,11 @@ devices = jax.devices()
 n = len(devices)
 print(f"{n} devices on {devices[0].platform}")
 
-# All devices on the row axis: halo exchange is nearest-neighbor over ICI.
+# All devices on the row axis: each shard exchanges halos with two neighbours.
 mesh = make_mesh(batch=1, rows=n, cols=1)
 h, w = 64 * n, 1920
 cfg = CannyConfig(height=h, width=w)
 
-# backend="pallas" runs per-shard Pallas kernels on real TPU meshes.
 run = build_sharded_pipeline(cfg, mesh)
 
 frames = np.stack([make_scene(h, w, seed=s) for s in range(2)])

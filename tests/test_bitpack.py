@@ -202,8 +202,8 @@ class TestHysteresisPacked:
 
     def test_cap_semantics(self):
         """At the cap, the output is a monotone under-approximation of the
-        fixed point, and — because every backend calls this one function
-        with config-driven arguments — identical across backends by
+        fixed point, and — because every executor calls this one function
+        with config-driven arguments — identical across executors by
         construction (docs/parity.md)."""
         t = make_spiral(41, 57)
         full = np.asarray(hysteresis_packed(jnp.asarray(t), max_iters=500))

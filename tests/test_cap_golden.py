@@ -1,4 +1,4 @@
-"""Production-scale cap-truncation golden (VERDICT r2 #8).
+"""Production-scale cap-truncation golden.
 
 The 1080p adversarial spiral (a single ~1M-px candidate chain,
 io/sources.make_spiral_thresh) does NOT converge within the default
@@ -6,15 +6,13 @@ io/sources.make_spiral_thresh) does NOT converge within the default
 truncation semantics actually bite. This digest pins the truncated
 output bit-for-bit:
 
-* here (CPU, canonical XLA loop): a schedule regression — step cadence,
-  direction order, round counting, anything in bitpack._make_ops — flips
-  the digest;
-* on hardware (tests/test_pallas_ops.py's TPU subprocess): the fused
-  Pallas kernel must produce the SAME digest, closing the cross-backend
-  cap contract at the scale where it matters (docs/parity.md).
+a schedule regression — step cadence, direction order, round counting,
+anything in bitpack._make_ops — flips the digest. chip_smoke.py checks the
+same cap semantics on the GPU against numpy_oracle.hysteresis_capped.
 
 If a DELIBERATE schedule change lands (it must land in bitpack._make_ops
-for every backend at once — CLAUDE.md invariant), regenerate with:
+and numpy_oracle.hysteresis_capped together — CLAUDE.md invariant),
+regenerate with:
     python -c "import tests.test_cap_golden as g; g.regenerate()"
 """
 import hashlib

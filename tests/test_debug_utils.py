@@ -13,7 +13,7 @@ from cudacam_tpu.utils.debug import (
 
 
 def test_health_check_passes():
-    assert device_health_check() in ("cpu", "tpu", "gpu")
+    assert device_health_check() in ("cpu", "gpu")
 
 
 def test_enable_disable_checks_roundtrip():

@@ -56,7 +56,7 @@ class TestCompose:
 class TestAppDisplay:
     def _app(self):
         src = SyntheticSource(height=32, width=48, n_frames=40)
-        return CannyApp(src, CannyConfig(height=32, width=48, backend="xla"))
+        return CannyApp(src, CannyConfig(height=32, width=48))
 
     def test_published_composed(self):
         with self._app() as app:
@@ -97,6 +97,6 @@ class TestAppDisplay:
 
         out = str(tmp_path / "e.avi")
         rc = cli_main(["run", "--source", "synthetic:32x48", "--frames", "3",
-                       "--backend", "xla", "--display", "split",
+                       "--display", "split",
                        "--record", out])
         assert rc == 0 and os.path.exists(out)

@@ -1,9 +1,8 @@
 """Multi-process jax.distributed path, executed for real on CPU.
 
-BASELINE config 5 mandates a multi-host software path; no multi-host TPU
-hardware is attached here, so this spawns two OS processes that form a real
-jax.distributed cluster (coordinator on localhost), each contributing 4
-virtual CPU devices to an 8-device pod mesh, and runs the sharded pipeline
+BASELINE config 5 mandates a multi-host software path; this spawns two OS
+processes that form a real jax.distributed cluster (coordinator on
+localhost), each contributing 4 virtual CPU devices to an 8-device mesh, and runs the sharded pipeline
 end-to-end with cross-process halo exchange + psum convergence. Each worker
 verifies its addressable output shards against the NumPy oracle
 (tests/distributed_worker.py).

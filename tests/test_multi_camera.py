@@ -89,7 +89,7 @@ class TestMultiCameraApp:
         from cudacam_tpu.cli import main as cli_main
 
         rc = cli_main(["run", "--source", "multi:2*synthetic:24x32",
-                       "--frames", "3", "--backend", "xla",
+                       "--frames", "3",
                        "--save", str(tmp_path / "wall.png")])
         assert rc == 0
         import cv2

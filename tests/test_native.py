@@ -143,7 +143,7 @@ class TestRawvSource:
 class TestShutdownContract:
     """fp_stop/fp_close threading contract (framepump.cpp): a consumer
     blocked in acquire() is woken by a cross-thread stop() and the
-    subsequent close() must not touch freed state (ADVICE r1)."""
+    subsequent close() must not touch freed state."""
 
     def test_cross_thread_stop_unblocks_acquire(self, tmp_path):
         import threading

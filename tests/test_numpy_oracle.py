@@ -229,6 +229,51 @@ class TestHysteresis:
         assert out[1, 1] == 255 and out[1, 3] == 128
 
 
+class TestHysteresisCapped:
+    """The round-capped schedule (hysteresis_capped): with room to
+    converge it reaches the same fixed point as the BFS above."""
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_uncapped_equals_fixed_point(self, seed):
+        rng = np.random.default_rng(seed)
+        t = rng.choice([0, 128, 255], size=(70, 45),
+                       p=[0.5, 0.45, 0.05]).astype(np.uint8)
+        got, rounds = oracle.hysteresis_capped(
+            t, max_iters=10_000, inner_steps=3, scan_after=4,
+            return_iters=True)
+        np.testing.assert_array_equal(got, oracle.hysteresis(t))
+        assert rounds < 10_000
+
+    def test_band_boundary_stalls_inexact_steps(self):
+        """Intermediate steps do not cross the 32-row band boundary: with
+        one round of 2 steps (only the last exact), a seed at row 30
+        reaches row 31 and then row 32, but not row 33."""
+        t = np.zeros((40, 3), np.uint8)
+        t[25:40, 1] = 128
+        t[30, 1] = 255
+        got = oracle.hysteresis_capped(t, max_iters=1, inner_steps=2,
+                                       carry_every=8)
+        assert got[31, 1] == 255 and got[32, 1] == 255
+        assert got[33, 1] == 0 and got[28, 1] == 255
+
+    def test_at_least_one_round_runs(self):
+        t = np.zeros((3, 8), np.uint8)
+        t[1, 0] = 255
+        t[1, 1:8] = 128
+        got, rounds = oracle.hysteresis_capped(
+            t, max_iters=0, inner_steps=2, return_iters=True)
+        assert rounds == 1
+        assert list(got[1]) == [255, 255, 255, 0, 0, 0, 0, 0]
+
+    def test_keep_candidates_view(self):
+        t = np.zeros((3, 6), np.uint8)
+        t[1, 0] = 255
+        t[1, 1:6] = 128
+        got = oracle.hysteresis_capped(t, max_iters=1, inner_steps=1,
+                                       remove_candidates=False)
+        assert list(got[1]) == [255, 255, 128, 128, 128, 128]
+
+
 class TestFloat2Uchar:
     def test_abs_clamp_truncate(self):
         x = np.array([[-3.7, 300.0, 12.9, 255.0]], np.float32)

@@ -55,7 +55,7 @@ def test_alternate_thresholds_hold():
     assert s["cv2_within_1px_of_ours"] >= 0.97, s
 
 
-# --- sequence gate (round-2 verdict #7) ------------------------------------
+# --- sequence gate ------------------------------------
 # BASELINE asks parity "on recorded webcam sequences": a deterministic
 # pan/zoom sequence derived from the committed base still (the reference
 # repo's own sample photo, re-encoded) x a grid of threshold pairs, every

@@ -83,7 +83,7 @@ class TestRecordInput:
         raw = str(tmp_path / "in.rawv")
         rc = cli_main(
             ["run", "--source", "synthetic:32x48", "--frames", "3",
-             "--backend", "xla", "--record-input", raw]
+             "--record-input", raw]
         )
         assert rc == 0
         with FramePump(raw) as pump:
@@ -97,7 +97,7 @@ class TestRecordInput:
         out = str(tmp_path / "out.npy")
         rc = cli_main(
             ["run", "--source", "synthetic:32x48", "--frames", "2",
-             "--backend", "xla", "--record", out, "--record-input", raw]
+             "--record", out, "--record-input", raw]
         )
         assert rc == 0
         assert np.load(out).shape == (2, 32, 48)

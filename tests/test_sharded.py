@@ -221,18 +221,8 @@ class TestInjectableSaturate:
 
 
 class TestPackedGeo:
-    """make_geo invariants: granule alignment for the Pallas path, slot
-    clamping for small tiles, zero slots on single-shard axes."""
-
-    def test_granule_alignment(self):
-        from cudacam_tpu.parallel.packed_halo import make_geo
-
-        for h, w in [(540, 960), (1080, 1920), (135, 240), (64, 96)]:
-            g = make_geo(h, w, granule=True)
-            assert g.ext_h % 8 == 0 and g.ext_w % 128 == 0, (h, w, g)
-            assert g.e_top >= min(32, h) and g.e_left >= min(64, w)
-            assert g.plane_rows > g.hw  # guard word-row present
-            assert g.plane_lanes >= g.ext_w + 128
+    """make_geo invariants: slot clamping for small tiles, zero slots on
+    single-shard axes."""
 
     def test_slots_clamped_to_tile(self):
         from cudacam_tpu.parallel.packed_halo import make_geo
@@ -243,10 +233,10 @@ class TestPackedGeo:
     def test_single_shard_axes_have_no_slots(self):
         from cudacam_tpu.parallel.packed_halo import make_geo
 
-        g = make_geo(1080, 1920, granule=True, ny=1, nx=1)
+        g = make_geo(1080, 1920, ny=1, nx=1)
         assert (g.e_top, g.e_bot, g.e_left, g.e_right) == (0, 0, 0, 0)
         assert (g.ext_h, g.ext_w) == (1080, 1920)  # degenerate = raw tile
-        g2 = make_geo(540, 1920, granule=True, ny=2, nx=1)
+        g2 = make_geo(540, 1920, ny=2, nx=1)
         assert g2.e_top > 0 and g2.e_left == 0  # row-only mesh
 
 
@@ -314,30 +304,3 @@ class TestPackedHaloUnits:
         # bits 100..109 set, nothing else; word 3 holds bits 96..127
         assert (got[:3] == 0).all()
         assert (got[3] == (((1 << 10) - 1) << 4)).all()
-
-
-@pytest.mark.slow
-class TestShardedMegaInterpret:
-    """The Pallas sharded hot path — export-mode megakernel + packed strip
-    exchange + fused saturate kernel + unpack kernel — composed across
-    REAL shard boundaries, in interpret mode on the virtual mesh (no
-    multi-chip hardware is attached to this deployment; the TPU
-    subprocess test covers the same composition on one real chip at
-    1x1x1). A 2-row mesh with mega-eligible tiles (>= 40x192) and a
-    cross-shard snake forces collective rounds through the kernels."""
-
-    def test_two_shard_mega_composition(self):
-        h, w = 96, 384  # 48x384 tiles: use_mega on both shards
-        frame = np.zeros((h, w), np.uint8)
-        # Vertical intensity ramp: finals only near the top, an unbroken
-        # candidate chain crossing the shard boundary at row 48.
-        frame[:, 200] = np.linspace(255, 80, h).astype(np.uint8)
-        cfg = CannyConfig(height=h, width=w, channels=1, interpret=True)
-        mesh = make_mesh(batch=1, rows=2, cols=1, devices=jax.devices()[:2])
-        run = build_sharded_pipeline(cfg, mesh, backend="pallas")
-        out = np.asarray(
-            run(jnp.asarray(frame)[None], jnp.int32(5), jnp.int32(90))
-        )[0]
-        exp = oracle.canny_pipeline(frame, low=5, high=90)["hyster"]
-        np.testing.assert_array_equal(out, exp)
-        assert (out[90] == 255).any()  # promotion crossed the shard seam

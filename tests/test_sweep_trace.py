@@ -91,29 +91,3 @@ class TestDistributedHelpers:
         mesh = pod_mesh(batch=1)
         assert mesh.shape["y"] == len(__import__("jax").devices())
         assert is_coordinator()
-
-
-class TestPallasSweep:
-    """threshold_sweep on the Pallas backend runs the PRODUCTION kernels
-    (one feed_forward_nmsq pass + fused-hysteresis tails) and must be
-    bit-identical to xla_ops.threshold_sweep in both parity domains
-    (round-2 verdict gap #3; measured 9.7 -> 2.8 ms for K=16 at 1080p)."""
-
-    @pytest.mark.slow
-    @pytest.mark.parametrize("parity", ["reference", "opencv"])
-    def test_matches_xla_sweep_interpret(self, parity):
-        from cudacam_tpu.ops.pallas.canny import threshold_sweep_pallas
-
-        rng = np.random.default_rng(9)
-        frame = rng.integers(0, 256, (64, 256, 3), np.uint8)
-        lows = jnp.asarray([5, 10, 20, 40], jnp.int32)
-        highs = jnp.asarray([20, 40, 80, 120], jnp.int32)
-        cfg = CannyConfig(height=64, width=256, parity=parity)
-        m1, c1 = threshold_sweep_pallas(
-            jnp.asarray(frame), lows, highs, cfg, interpret=True
-        )
-        m2, c2 = jax.jit(
-            lambda f, lo, hi: xla_ops.threshold_sweep(f, lo, hi, cfg)
-        )(jnp.asarray(frame), lows, highs)
-        np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
-        np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))

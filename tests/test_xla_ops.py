@@ -1,4 +1,4 @@
-"""Bit-exact equivalence of the XLA backend vs the NumPy oracle."""
+"""Bit-exact equivalence of the XLA implementation vs the NumPy oracle."""
 import numpy as np
 import pytest
 

@@ -1,20 +1,25 @@
-"""Capture an XProf device trace of the Pallas pipeline (run ON TPU).
+"""Capture a profiler trace of the 1080p engine stream (run on the GPU).
 
-Usage: python tools/trace_capture.py LOGDIR [--passes N]
-Prints nothing but the logdir contents; parsing happens in
-tools/trace_report.py (separate process: keeps this one free of any
-device->host readback other than what the profiler itself does).
+Usage: python tools/trace_capture.py LOGDIR
+
+Streams 8 distinct device-resident frames 4 times under
+``jax.profiler.trace`` and prints the traced wall time plus the device
+busy time the trace reduces to (utils/devtime.py). Open LOGDIR in
+TensorBoard/XProf or read it with ``jax.profiler.ProfileData``.
 """
-import os, sys, time, json
+import json
+import os
+import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 
 from cudacam_tpu import CannyConfig
 from cudacam_tpu.engine import CannyEngine
 from cudacam_tpu.io.sources import make_scene
+from cudacam_tpu.utils.devtime import device_busy_ns, read_trace
 
 logdir = sys.argv[1]
 h, w = 1080, 1920
@@ -33,4 +38,9 @@ with eng.trace(logdir):
             out = eng.process(f)
     jax.block_until_ready(out)
 dt = time.perf_counter() - t0
-print(json.dumps({"traced_s": dt, "per_frame_ms": dt * 1e3 / 32}))
+busy_ns = device_busy_ns(read_trace(logdir).planes, jax.devices()[0].platform)
+print(json.dumps({
+    "traced_s": dt,
+    "per_frame_ms": dt * 1e3 / 32,
+    "device_busy_ms_per_frame": None if busy_ns is None else busy_ns / 32e6,
+}))
